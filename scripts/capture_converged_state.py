@@ -1,12 +1,11 @@
 """Capture a CONVERGED-regime ensemble snapshot as a test fixture.
 
-Round-4's tutorial E2E measured ~26% of converged-state dimension
-proposals failing by warm-cap (vs ~11% at the bench's mid-burn-in
-measurement point) — a transition-kernel deviation class with no
-regression pin (VERDICT round-4 item 3).  This script runs the
-tutorial joint SWD+RF configuration at the reference's own 21-chain
-operating point through burn-in plus a slice of the main phase on
-the real chip, then saves the small late-phase state snapshot
+Converged chains' dimension proposals are mostly structure-breaking,
+so the converged regime needs its own pin of the forward-reject class.
+This script runs the tutorial joint SWD+RF configuration at the
+reference's own 21-chain operating point through burn-in plus a slice
+of the main phase on the accelerator, then saves the small late-phase
+state snapshot
 (models, noise, adapted proposal widths) to
 ``tests/fixtures/converged_state_st3.npz`` for
 ``tests/test_dim_reject_converged.py`` to drive deterministically.
@@ -23,27 +22,23 @@ import numpy as np
 
 import jax
 
-jax.config.update('jax_compilation_cache_dir',
-                  os.path.join(os.path.dirname(__file__), '..',
-                               '.jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-
 NCHAINS = int(sys.argv[1]) if len(sys.argv) > 1 else 21
 ITERS = int(sys.argv[2]) if len(sys.argv) > 2 else 24576
 
 
 def main():
     import bench
-    from bayhunter_tpu.sampler.chain import dispatch_cycles, \
+    from bayhunter_jax import device
+    from bayhunter_jax.sampler.chain import dispatch_cycles, \
         precompile_cycles
 
+    device.enable_compile_cache()
     sampler = bench.build(iters=ITERS)
     states = sampler.init_states_host(0, NCHAINS)
     precompile_cycles(sampler, states)
 
-    # burn-in + 25% of main: safely in the converged regime of the
-    # round-4 tutorial E2E (posterior recovery on target from the
-    # main phase onward)
+    # burn-in + 25% of main: safely in the converged regime
+    # (posterior recovery is on target from the main phase onward)
     total = ITERS + ITERS // 4
     it = -ITERS
     done = 0

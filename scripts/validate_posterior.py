@@ -1,4 +1,4 @@
-"""Condensed posterior-recovery validation on TPU (VALIDATION.md).
+"""Condensed posterior-recovery validation (VALIDATION.md).
 
 Runs the tutorial joint SWD+RF inversion (512 chains) through the full
 production path (MCMC_Optimizer -> batched sampler -> .npy contract)
@@ -12,7 +12,6 @@ and checks the pooled better-half posterior against the known truth:
 Usage:  python scripts/validate_posterior.py [nchains] [burnin] [main]
 """
 
-import os
 import os.path as op
 import shutil
 import sys
@@ -22,22 +21,17 @@ import numpy as np
 
 sys.path.insert(0, op.join(op.dirname(__file__), '..'))
 
-import jax  # noqa: E402
-
-jax.config.update('jax_compilation_cache_dir',
-                  op.join(op.dirname(__file__), '..', '.jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-
-from bayhunter_tpu import (Targets, utils, MCMC_Optimizer,  # noqa: E402
+from bayhunter_jax import (Targets, utils, MCMC_Optimizer,  # noqa: E402
                            SynthObs)
-from bayhunter_tpu.models import Model  # noqa: E402
+from bayhunter_jax.models import Model  # noqa: E402
 
 NCHAINS = int(sys.argv[1]) if len(sys.argv) > 1 else 512
 BURNIN = int(sys.argv[2]) if len(sys.argv) > 2 else 2048 * 16
 MAIN = int(sys.argv[3]) if len(sys.argv) > 3 else 2048 * 8
 
 here = op.join(op.dirname(__file__), '..', 'tutorial')
-savepath = op.join('/tmp', 'validate_posterior')
+savepath = op.join(op.dirname(__file__), '..', 'results',
+                   'validate_posterior')
 
 
 def main():
@@ -75,11 +69,6 @@ def main():
                        'iter_main': MAIN,
                        'propdist': (0.025, 0.025, 0.015, 0.005, 0.005),
                        'savepath': savepath})
-    # isolation knob for on-chip A/B (resort is exact relabeling, but
-    # with the RF dynamic skip the tile-mates differ)
-    if os.environ.get('BAYHUNTER_VP_RESORT') == '0':
-        initparams['resort_chains'] = False
-
     t0 = time.time()
     optimizer = MCMC_Optimizer(targets, initparams=initparams,
                                priors=priors, random_seed=7)
@@ -89,7 +78,7 @@ def main():
     print('inversion: %.0f s for %d proposals (%.0f proposals/s)'
           % (dt, nprop, nprop / dt))
 
-    from bayhunter_tpu.plotting import PlotFromStorage
+    from bayhunter_jax.plotting import PlotFromStorage
     configfile = op.join(savepath, 'data',
                          '%s_config.pkl' % initparams['station'])
     obj = PlotFromStorage(configfile)

@@ -1,7 +1,7 @@
 """Template: a user-defined forward-model plugin.
 
 Mirrors the reference extension point (reference:
-templates/myfwd.py:13-53), extended with the TPU contract: to run
+templates/myfwd.py:13-53), extended with the device contract: to run
 inside the on-device sampler, the plugin must ALSO provide a
 JAX-traceable ``run_model_jax``.
 
@@ -14,7 +14,7 @@ Two entry points:
   * ``run_model_jax(h, vp, vs, rho) -> y`` — device-side protocol used
     by the McMC sampler.  MUST be jit-traceable with FIXED shapes:
     inputs are (NL,) padded layer arrays (halfspace last, zero
-    thickness padding — see bayhunter_tpu/ops/voronoi.py) and the
+    thickness padding — see bayhunter_jax/ops/voronoi.py) and the
     output must always have shape (ndata,).  Signal failure through
     non-finite values in ``y`` (they map to the sentinel likelihood,
     reference: src/Targets.py:325-328).

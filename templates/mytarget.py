@@ -7,7 +7,7 @@ noise-prior family — <noiseref>noise_corr / <noiseref>noise_sigma —
 applies to this target).
 """
 
-from bayhunter_tpu.Targets import SingleTarget
+from bayhunter_jax.Targets import SingleTarget
 
 
 class MyOwnTarget(SingleTarget):

@@ -9,9 +9,9 @@ import pytest
 import matplotlib
 matplotlib.use('PDF')
 
-from bayhunter_tpu import Targets, utils
-from bayhunter_tpu.baywatch import BayWatcher
-from bayhunter_tpu.synthobs import SynthObs
+from bayhunter_jax import Targets, utils
+from bayhunter_jax.baywatch import BayWatcher
+from bayhunter_jax.synthobs import SynthObs
 
 
 @pytest.fixture(scope='module')

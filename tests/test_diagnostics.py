@@ -3,7 +3,7 @@ against analytically known chains."""
 
 import numpy as np
 
-from bayhunter_tpu.diagnostics import split_rhat, ess, \
+from bayhunter_jax.diagnostics import split_rhat, ess, \
     convergence_report
 
 

@@ -1,29 +1,25 @@
 """Regression pin for the dimension-move forward-reject class.
 
-Warm-cap sentinel rejects on birth/death proposals are this
-framework's analogue of the reference's rare ``getsol`` search
-failure (surfdisp96.f:313-354 err -> rejected proposal): a lane whose
-dispersion root moved beyond the walk bound of the (Newton-
-recentered) warm start is rejected outright.  Ten sessions of
-ring/cap/depth throughput cuts each nudged this class (on-chip
-history: fwd_reject_dim_pct 10.5-11% at the 10,240-chain bench
-config); nothing previously FAILED if a future cut silently bent the
-transition kernel.
+Forward-solve failures on birth/death proposals are this framework's
+analogue of the reference's rare ``getsol`` search failure
+(surfdisp96.f:313-354 err -> rejected proposal).  On the plain warm
+solve (the ring search of ops/swd.py surfdisp_roots) the search is
+uncapped: a ring expands until the root is bracketed or the velocity
+range is exhausted, so the class holds only proposals whose
+dispersion curve has no root in range for some period — no walk
+bound rejects a reachable lane.  Nothing else FAILS if a future change
+silently bends the transition kernel, so this test pins the class.
 
-This test drives the production batch path (eval_full_batch +
-step_fn with static move ids, pallas kernels in interpret mode) on a
-fixed, seeded ensemble of grown posterior-like models and pins the
-per-direction reject fractions in a measured band.  Everything is
-deterministic (fixed seeds, fixed propdist), so the bands are tight:
+It drives the production step path (step_fn with static move ids) on
+a fixed, seeded ensemble of grown posterior-like models at the
+bench.py tutorial configuration.  Everything is deterministic (fixed
+seeds, fixed propdist), so the bands are tight:
 
-  measured at the pin commit (CPU, production default knobs):
-    birth  5/256  = 2.0 %
-    death 66/256  = 25.8 %
-    combined      = 13.9 %
-  knob-bending sensitivity: BAYHUNTER_DIM_NEWTON_ITERS=0 (prepass
-  off, ring 1) pushes the combined rate to 19.1 % -> trips the
-  ceiling; disabling the caps entirely pushes it to 0 -> trips the
-  floor.
+  measured on the CPU (plain path, default ring widths): birth 0/256,
+  death 0/256 — the ensemble's dimension proposals all keep a root
+  in range.  A walk bound or trip cap reintroduced into the warm
+  solve (the removed fused-walker design rejected 13.9 % of this
+  ensemble) lifts the class above the ceiling.
 """
 
 import os
@@ -34,15 +30,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bayhunter_tpu import Targets
-from bayhunter_tpu.sampler.chain import (build_sampler, make_config,
+from bayhunter_jax import Targets
+from bayhunter_jax.sampler.chain import (build_sampler, make_config,
                                          MOVE_BIRTH, MOVE_DEATH)
-from bayhunter_tpu.sampler.evaluator import build_evaluator
+from bayhunter_jax.sampler.evaluator import build_evaluator
 
 
 def _bench_config_sampler(nl=21):
-    """The bench.py tutorial configuration (joint SWD+RF), built on
-    the batch path with pallas kernels in interpret mode."""
+    """The bench.py tutorial configuration (joint SWD+RF)."""
     fixtures = os.path.join(os.path.dirname(__file__), 'fixtures')
     swd = np.loadtxt(os.path.join(fixtures, 'st3_rdispph.dat'))
     prf = np.loadtxt(os.path.join(fixtures, 'st3_prf.dat'))
@@ -58,8 +53,7 @@ def _bench_config_sampler(nl=21):
                   'lvz': None, 'hvz': None, 'rcond': 1e-5,
                   'iter_burnin': 4096, 'iter_main': 4096}
     cfg = make_config(priors, initparams, ['swd', 'rf'], nl=nl)
-    eval_fn = build_evaluator(joint, priors, initparams, nl,
-                              use_batch_swd=True, interpret=True)
+    eval_fn = build_evaluator(joint, priors, initparams, nl)
     return build_sampler(eval_fn, cfg), eval_fn
 
 
@@ -119,11 +113,14 @@ def test_dim_reject_class_stays_in_band():
     birth_pct = 100.0 * fails['birth'] / (2 * C)
     death_pct = 100.0 * fails['death'] / (2 * C)
     combined = 100.0 * (fails['birth'] + fails['death']) / (4 * C)
+    accepted = int(np.asarray(s.accepted).sum(0)[2])
 
-    # bands around the deterministic pin-commit measurement (2.0 /
-    # 25.8 / 13.9 %), wide enough for XLA-version rounding drift but
-    # tight enough that known knob-bending trips them (see module
-    # docstring)
-    assert birth_pct <= 10.0, birth_pct
-    assert 12.0 <= death_pct <= 33.0, death_pct
-    assert 5.0 <= combined <= 17.0, combined
+    # band around the deterministic CPU measurement (0 / 0 %): the
+    # ceiling leaves room for XLA-version rounding drift on a
+    # marginal lane; the acceptance check shows the proposals reached
+    # the solver and were scored (a bypassed solve would accept none
+    # or all of them)
+    assert birth_pct <= 1.0, birth_pct
+    assert death_pct <= 1.0, death_pct
+    assert combined <= 1.0, combined
+    assert 0 < accepted < 4 * C, accepted

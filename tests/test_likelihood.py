@@ -1,9 +1,10 @@
 """Likelihood kernels vs dense reference formulations."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops import likelihood as lk
+from bayhunter_jax.ops import likelihood as lk
 
 
 def dense_logl(ydiff, c_inv, logc_det):
@@ -98,10 +99,10 @@ def test_gauss_whitener_matches_pinv_and_stays_psd():
     float32 even for near-fitting residuals under extreme conditioning
     (r=0.98, n=201) — the dense contraction can round negative, which
     lets the sampler blow logL up by shrinking sigma (regression for a
-    bug caught in the tutorial-scale TPU run)."""
+    bug caught in a tutorial-scale accelerator run)."""
     import numpy as np
     import jax.numpy as jnp
-    from bayhunter_tpu.ops import likelihood as lk
+    from bayhunter_jax.ops import likelihood as lk
 
     n, corr, rcond = 201, 0.98, 1e-5
     rs = np.random.RandomState(0)
@@ -169,3 +170,90 @@ def test_gauss_dof_correction_unbiases_sigma():
     expect_biased = np.sqrt(k / n) * sigma_true
     assert abs(sig_ref - expect_biased) < 0.05 * sigma_true, \
         (sig_ref, expect_biased)
+
+
+def _dot_precisions(fn, *args):
+    """Precision config of every dot_general in ``fn``'s jaxpr."""
+    import jax
+    jaxpr = jax.make_jaxpr(fn)(*args)
+    out = []
+
+    def walk(jx):
+        for eqn in jx.eqns:
+            if eqn.primitive.name == 'dot_general':
+                out.append(eqn.params['precision'])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+    walk(jaxpr.jaxpr)
+    return out
+
+
+@pytest.mark.parametrize('law', ['gauss_white', 'gauss_white_dof',
+                                 'gauss'])
+def test_matrix_products_state_highest_precision(law):
+    """A GPU may run float32 products in TF32 unless told otherwise;
+    every product of the Gaussian laws (condition numbers >1e12 at
+    r = 0.98) must carry Precision.HIGHEST in its jaxpr."""
+    from jax import lax
+    n = 201
+    w, logdet = lk.gauss_whitener(0.98, n, rcond=1e-5)
+    yd = jnp.zeros((4, n), jnp.float32)
+    sg = jnp.full((4,), 0.01, jnp.float32)
+    W = jnp.asarray(w, jnp.float32)
+    C_inv = jnp.asarray(w @ w.T, jnp.float32)
+    fn = {'gauss_white': lambda d, s: lk.loglike_gauss_white(
+              d, s, W, logdet),
+          'gauss_white_dof': lambda d, s: lk.loglike_gauss_white_dof(
+              d, s, W, logdet),
+          'gauss': lambda d, s: lk.loglike_gauss(d, s, C_inv,
+                                                 logdet)}[law]
+    precs = _dot_precisions(fn, yd, sg)
+    assert precs, 'no matrix product found'
+    for p in precs:
+        assert p is not None and all(
+            q == lax.Precision.HIGHEST for q in p), precs
+
+
+@pytest.mark.parametrize('law', ['gauss_white', 'gauss_white_dof',
+                                 'exp'])
+def test_f32_matches_f64_at_r098(law):
+    """float32 laws against float64 numpy at r = 0.98 on correlated
+    residuals (the chip_smoke.py likelihood phase at CPU size):
+    relative deviation of logL, scaled by |logL| + madist/2, below
+    2e-5 (measured on the CPU: 1e-7 to 2e-6)."""
+    n, corr, rows = 201, 0.98, 256
+    rs = np.random.RandomState(11)
+    lam, u = np.linalg.eigh(lk.gauss_correlation_matrix(corr, n))
+    sigma = rs.uniform(0.003, 0.02, rows)
+    yd = (rs.standard_normal((rows, n)) * np.sqrt(np.clip(lam, 0, None))
+          ) @ u.T * sigma[:, None]
+    if law == 'exp':
+        d2 = yd ** 2
+        q = (d2.sum(-1) + corr ** 2 * d2[:, 1:-1].sum(-1)
+             - 2 * corr * (yd[:, :-1] * yd[:, 1:]).sum(-1)) \
+            / (sigma ** 2 * (1 - corr ** 2))
+        ld = 2 * n * np.log(sigma) + (n - 1) * np.log(1 - corr ** 2)
+        ref = -0.5 * (n * np.log(2 * np.pi) + ld) - 0.5 * q
+
+        def fn(d, s):
+            return lk.loglike_exp(d, s, corr)
+    else:
+        dof = law == 'gauss_white_dof'
+        w, ldet = lk.gauss_whitener(corr, n, rcond=1e-5,
+                                    return_kept=dof)
+        k = w.shape[1] if dof else n
+        q = np.sum((yd @ w) ** 2, axis=-1) / sigma ** 2
+        ref = -0.5 * (k * np.log(2 * np.pi) + 2 * k * np.log(sigma)
+                      + ldet) - 0.5 * q
+        W = jnp.asarray(w, jnp.float32)
+        law_fn = lk.loglike_gauss_white_dof if dof \
+            else lk.loglike_gauss_white
+
+        def fn(d, s):
+            return law_fn(d, s, W, ldet)
+    import jax
+    got = np.asarray(jax.vmap(fn)(jnp.asarray(yd, jnp.float32),
+                                  jnp.asarray(sigma, jnp.float32)),
+                     np.float64)
+    rel = np.abs(got - ref) / (np.abs(ref) + 0.5 * q)
+    assert rel.max() < 2e-5, rel.max()

@@ -9,12 +9,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops.swd import surfdisp
-from bayhunter_tpu.ops.rf import synrf, P_WAVE, SV_WAVE
+from bayhunter_jax.ops.swd import surfdisp
+from bayhunter_jax.ops.rf import synrf, P_WAVE, SV_WAVE
 
-native = pytest.importorskip('bayhunter_tpu.native')
-if native.load() is None:  # pragma: no cover
-    pytest.skip('native library unavailable', allow_module_level=True)
+from bayhunter_jax import native
+
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    if native.load() is None:  # pragma: no cover
+        pytest.skip('native library unavailable')
 
 
 def random_model(rs, nlay):

@@ -28,8 +28,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops.rf import coeff, coeffs
-from bayhunter_tpu.ops.swd import surfdisp
+from bayhunter_jax.ops.rf import coeff, coeffs
+from bayhunter_jax.ops.swd import surfdisp
 
 
 def _vertical_slownesses(u, vp, vs):

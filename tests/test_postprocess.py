@@ -12,9 +12,9 @@ import pytest
 import matplotlib
 matplotlib.use('PDF')
 
-from bayhunter_tpu import Targets, MCMC_Optimizer, PlotFromStorage
-from bayhunter_tpu import utils
-from bayhunter_tpu.synthobs import SynthObs
+from bayhunter_jax import Targets, MCMC_Optimizer, PlotFromStorage
+from bayhunter_jax import utils
+from bayhunter_jax.synthobs import SynthObs
 
 
 @pytest.fixture(scope='module')
@@ -84,7 +84,7 @@ def test_plot_from_storage_full_pipeline(mini_run):
 
 def test_baywatch_wire_roundtrip():
     zmq = pytest.importorskip('zmq')
-    from bayhunter_tpu.utils import SerializingContext
+    from bayhunter_jax.utils import SerializingContext
     ctx = SerializingContext()
     pub = ctx.socket(zmq.PUB)
     sub = ctx.socket(zmq.SUB)
@@ -270,7 +270,7 @@ def test_resort_chains_identical_outputs(tmp_path):
 def test_convergence_report_from_storage(mini_run):
     """PlotFromStorage.convergence_report: split-R-hat/ESS over the
     stored per-chain traces (diagnostics.py)."""
-    from bayhunter_tpu import PlotFromStorage
+    from bayhunter_jax import PlotFromStorage
     configfile = op.join(mini_run, 'data', 'mini_config.pkl')
     obj = PlotFromStorage(configfile)
     rep = obj.convergence_report()

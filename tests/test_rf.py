@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from bayhunter_tpu.ops.rf import (synrf, flatten_model, rho_vp,
+from bayhunter_jax.ops.rf import (synrf, flatten_model, rho_vp,
                                   interface_coefficients, P_WAVE, SV_WAVE)
 from tests.conftest import golden_path
 
@@ -165,7 +165,7 @@ def test_coeff_introspection_normal_incidence():
     at normal incidence the displacement reflection coefficients
     reduce to the classic impedance-contrast formulas and P/SV
     conversions vanish."""
-    from bayhunter_tpu.ops.rf import coeff, coeffs
+    from bayhunter_jax.ops.rf import coeff, coeffs
     vp1, vs1, rh1 = 6.0, 3.5, 2.7
     vp2, vs2, rh2 = 8.0, 4.6, 3.3
     rd, td, ru, tu, sh = coeff(0.0, vp1, vs1, rh1, vp2, vs2, rh2,
@@ -200,38 +200,6 @@ def test_coeff_introspection_normal_incidence():
     assert rhu_s == 1.0 + 0.0j
 
 
-def test_batch_dft_matches_irfft(monkeypatch):
-    """The truncated inverse-DFT matmul (BAYHUNTER_RF_DFT, default
-    on — the Gauss-cutoff spectrum makes the irfft two tiny constant
-    matmuls that ride the MXU) must match jnp.fft.irfft to f32
-    rounding."""
-    from bayhunter_tpu.ops.rf import synrf_batch
-
-    NL, C = 8, 8
-    rng = np.random.RandomState(0)
-    h = np.zeros((C, NL), np.float32)
-    h[:, :3] = [5., 23., 8.]
-    vs = np.full((C, NL), 4.4, np.float32)
-    vs[:, :4] = [2.7, 3.6, 3.8, 4.4]
-    vs += rng.uniform(-0.05, 0.05, (C, NL)).astype(np.float32)
-    vp = (vs * 1.73).astype(np.float32)
-    rho = (0.32 * vp + 0.77).astype(np.float32)
-    qp = jnp.full((C, NL), 500., jnp.float32)
-    qs = jnp.full((C, NL), 225., jnp.float32)
-    poisson = (2 - 1.73 ** 2) / (2 - 2 * 1.73 ** 2)
-    args = (jnp.asarray(h), jnp.asarray(vp), jnp.asarray(vs),
-            jnp.asarray(rho), qp, qs, 6.4, 1.0, 512, 5.0, 5.0,
-            jnp.asarray(vs[:, 0]), jnp.full((C,), poisson,
-                                            jnp.float32))
-    monkeypatch.setenv('BAYHUNTER_RF_DFT', '0')
-    rf_fft = np.asarray(synrf_batch(*args, wave_type=P_WAVE,
-                                    interpret=True))
-    monkeypatch.setenv('BAYHUNTER_RF_DFT', '1')
-    rf_dft = np.asarray(synrf_batch(*args, wave_type=P_WAVE,
-                                    interpret=True))
-    np.testing.assert_allclose(rf_dft, rf_fft, atol=5e-7)
-
-
 def test_synrf_solver_options():
     """The rfmini compile-time solver options (synrf.h:52-53) as
     runtime flags.  SUPPRESS_MULTIPLES must reduce the response to
@@ -241,7 +209,7 @@ def test_synrf_solver_options():
     anelastic law (Mueller eq. 132) and differ from finite Q."""
     import jax
     import jax.numpy as jnp
-    from bayhunter_tpu.ops.rf import (
+    from bayhunter_jax.ops.rf import (
         synrf, SUPPRESS_MULTIPLES, WITHOUT_ANELASTICITY,
         _transmission_response, interface_coefficients,
         flatten_model, DEG_PER_KM)
@@ -299,7 +267,7 @@ def test_synrf_solver_options():
         e = np.zeros((nfreq, 2, 2), complex)
         e[:, 0, 0], e[:, 1, 1] = e1, e2
         g = g @ (e @ np.broadcast_to(tu, (nfreq, 2, 2)))
-    from bayhunter_tpu.ops.rf import displacement_matrix
+    from bayhunter_jax.ops.rf import displacement_matrix
     hmat = np.asarray(displacement_matrix(p, vpf_n[0], vsf_n[0],
                                           jnp.complex128))
     t = 2.0 * np.einsum('ab,fbc->fac', hmat, g)

@@ -5,8 +5,8 @@ Gauss-Newton recovery of a perturbed vs profile."""
 import numpy as np
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops.rf import synrf, P_WAVE
-from bayhunter_tpu.ops.rf_pd import (rf_partials, truncated_svd_solve,
+from bayhunter_jax.ops.rf import synrf, P_WAVE
+from bayhunter_jax.ops.rf_pd import (rf_partials, truncated_svd_solve,
                                      invert_rf, _parameter_basis)
 
 NL = 8

@@ -20,11 +20,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops.rf import synrf, P_WAVE, SV_WAVE
+from bayhunter_jax.ops.rf import synrf, P_WAVE, SV_WAVE
 
-native = pytest.importorskip('bayhunter_tpu.native')
-if native.load() is None:  # pragma: no cover
-    pytest.skip('native library unavailable', allow_module_level=True)
+from bayhunter_jax import native
+
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    if native.load() is None:  # pragma: no cover
+        pytest.skip('native library unavailable')
 
 NL = 10
 NSAMP = 256

@@ -10,10 +10,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bayhunter_tpu import Targets
-from bayhunter_tpu.synthobs import SynthObs
-from bayhunter_tpu.sampler.chain import build_sampler, make_config
-from bayhunter_tpu.sampler.evaluator import build_evaluator
+from bayhunter_jax import Targets
+from bayhunter_jax.synthobs import SynthObs
+from bayhunter_jax.sampler.chain import build_sampler, make_config
+from bayhunter_jax.sampler.evaluator import build_evaluator
 
 DTYPE = jnp.float64
 
@@ -202,7 +202,7 @@ def test_cycle_matches_step_sequence(sampler):
     """The fused move cycle (one program) must be bit-identical to
     dispatching its moves one step_fn call at a time; the dimension
     slots take the per-cycle birth/death draw as static arguments."""
-    from bayhunter_tpu.sampler.chain import (MOVE_VS, MOVE_Z,
+    from bayhunter_jax.sampler.chain import (MOVE_VS, MOVE_Z,
                                              MOVE_BIRTH, MOVE_DEATH,
                                              MOVE_NOISE)
     states = sampler.init_states_host(5, 8)
@@ -266,10 +266,10 @@ def test_prior_only_dispatch_cycles_uniform_layer_histogram():
     """Long prior-only run through the PRODUCTION dispatch path
     (fused cycles with host-drawn dimension slots): the layer-count
     marginal must be uniform over the prior range, and must match the
-    random-scan run_fn reference within sampling error (VERDICT
-    round 1 item 4c — the birth/death slot mixture must not bias the
-    transdimensional posterior)."""
-    from bayhunter_tpu.sampler.chain import dispatch_cycles
+    random-scan run_fn reference within sampling error (the
+    birth/death slot mixture must not bias the transdimensional
+    posterior)."""
+    from bayhunter_jax.sampler.chain import dispatch_cycles
 
     initparams = dict(INITPARAMS,
                       propdist=(0.05, 0.05, 1.0, 0.005, 0.005),
@@ -340,7 +340,7 @@ def test_resort_states_is_exact_relabeling(sampler):
     move schedule is chain-independent), so the sorted run's final
     states, matched back through perm, are bit-identical to the
     unsorted run's."""
-    from bayhunter_tpu.sampler.chain import dispatch_cycles, \
+    from bayhunter_jax.sampler.chain import dispatch_cycles, \
         resort_states
 
     C = 16
@@ -381,7 +381,7 @@ def test_resort_states_is_exact_relabeling(sampler):
 def test_resort_states_block_keeps_groups(sampler):
     """block=k moves whole consecutive row blocks (temperature
     groups) together, keyed on each block's first (cold) row."""
-    from bayhunter_tpu.sampler.chain import resort_states
+    from bayhunter_jax.sampler.chain import resort_states
 
     C, k = 12, 3
     states = sampler.init_states_host(13, C)
@@ -416,7 +416,7 @@ def test_scan_cycles_match_single_cycle_dispatch(sampler, monkeypatch):
     class as the sharded-vs-unsharded note in test_sharding8).
     Covers the early/late cutoff crossing (the scan must not run a
     late cycle before early_cutoff)."""
-    from bayhunter_tpu.sampler.chain import (dispatch_cycles,
+    from bayhunter_jax.sampler.chain import (dispatch_cycles,
                                              scan_cycles_for)
     # auto heuristic: floor-dominated small batches scan, big ones
     # not (conftest pins SCAN_CYCLES=1 suite-wide; lift it here)

@@ -16,11 +16,11 @@ import numpy as np
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from bayhunter_tpu import Targets, MCMC_Optimizer
-from bayhunter_tpu.synthobs import SynthObs
-from bayhunter_tpu.sampler.chain import (build_sampler, make_config,
+from bayhunter_jax import Targets, MCMC_Optimizer
+from bayhunter_jax.synthobs import SynthObs
+from bayhunter_jax.sampler.chain import (build_sampler, make_config,
                                          dispatch_cycles)
-from bayhunter_tpu.sampler.evaluator import build_evaluator
+from bayhunter_jax.sampler.evaluator import build_evaluator
 
 NCH = 16
 
@@ -128,12 +128,11 @@ def test_optimizer_8dev_full_run(cpu_devices, tmp_path):
 
 def test_shard_map_sampler_matches_and_avoids_gathers(cpu_devices):
     """build_sampler(mesh=...) shard_maps the dispatch programs: each
-    device must run its own chain shard — GSPMD alone has no
-    partitioning rule for pallas_call and ALL-GATHERS the batch,
-    replicating the hottest kernels on every device.  The shard_mapped
-    cycle must (i) lower with zero all-gathers even with the pallas
-    batch evaluator in the program, and (ii) be trajectory-identical
-    to the meshless sampler."""
+    device must run its own chain shard, root-search loops included
+    (their batch-wide exit tests would otherwise reduce across
+    devices every trip).  The shard_mapped cycle must (i) lower with
+    zero all-gathers, and (ii) run the same Markov process as the
+    meshless sampler."""
     import jax.numpy as jnp
     assert len(cpu_devices) >= 8
 
@@ -151,27 +150,26 @@ def test_shard_map_sampler_matches_and_avoids_gathers(cpu_devices):
     cfg = make_config(priors, initparams, ['swd'], nl=nl,
                       dtype=jnp.float32)
 
-    def build(mesh, use_batch):
+    def build(mesh):
         joint = Targets.JointTarget(targets=[
             Targets.RayleighDispersionPhase(np.asarray(x),
                                             np.asarray(y))])
         ev = build_evaluator(joint, priors, initparams, nl,
-                             dtype=jnp.float32,
-                             use_batch_swd=use_batch,
-                             interpret=use_batch)
+                             dtype=jnp.float32)
         return build_sampler(ev, cfg, mesh=mesh)
 
     mesh = Mesh(np.array(cpu_devices[:8]), ('chains',))
     sharding = NamedSharding(mesh, P('chains'))
 
-    # (i) lowered HLO of the fused cycle with the PALLAS batch path:
-    # shard_mapped -> no all-gather; sharded output
-    smp_pallas = build(mesh, use_batch=True)
-    states_p = sampler_states = smp_pallas.init_states_host(0, NCH)
+    # (i) lowered HLO of the fused cycle: shard_mapped -> no
+    # all-gather, no cross-device reduction; sharded output
+    smp_mesh = build(mesh)
+    states_p = smp_mesh.init_states_host(0, NCH)
     states_p = jax.device_put(states_p, sharding)
-    hlo = smp_pallas.cycle_mixed_fn.lower(states_p).compile().as_text()
+    hlo = smp_mesh.cycle_mixed_fn.lower(states_p).compile().as_text()
     assert 'all-gather' not in hlo, 'sharded cycle gathers the batch'
-    out = smp_pallas.cycle_mixed_fn(states_p)
+    assert 'all-reduce' not in hlo, 'sharded cycle reduces the batch'
+    out = smp_mesh.cycle_mixed_fn(states_p)
     assert len(out.logL.sharding.device_set) == 8
     assert np.all(np.isfinite(np.asarray(out.logL)))
 
@@ -181,8 +179,7 @@ def test_shard_map_sampler_matches_and_avoids_gathers(cpu_devices):
     # decisions can flip (bitwise cross-module parity is not a
     # meaningful target) — assert statistical equivalence instead.
     # Fixed seeds make this deterministic, not flaky.
-    smp_mesh = build(mesh, use_batch=False)
-    smp_flat = build(None, use_batch=False)
+    smp_flat = build(None)
     states0 = smp_mesh.init_states_host(0, NCH)
     logL0 = np.median(np.asarray(jax.device_get(states0.logL)))
     sha = _run_cycles_from(smp_mesh,
@@ -206,7 +203,7 @@ def test_resort_states_sharded_within_shards(cpu_devices):
     (chains never migrate), the perm stays a permutation, and the
     lowered program contains no cross-device collectives."""
     import jax.numpy as jnp
-    from bayhunter_tpu.sampler.chain import resort_states
+    from bayhunter_jax.sampler.chain import resort_states
 
     sampler = _tiny_sampler()
     C, ndev = 32, 8

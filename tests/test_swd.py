@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from bayhunter_tpu.ops.swd import surfdisp, surfdisp_batch
+from bayhunter_jax.ops.swd import surfdisp, surfdisp_batch
 from tests.conftest import golden_path
 
 NL = 8
@@ -48,7 +48,7 @@ def test_golden_dispersion(ref):
 
 @pytest.mark.parametrize('ref', ['rdispph', 'ldispgr'])
 def test_golden_dispersion_float32(ref):
-    """The TPU production dtype must hit the same golden tolerance."""
+    """The production dtype must hit the same golden tolerance."""
     iwave, igr = CASES[ref]
     args = padded_tutorial(np.float32)
     cg, err = surfdisp(*args, jnp.asarray(PERIODS, jnp.float32),
@@ -136,3 +136,36 @@ def test_higher_mode_above_fundamental():
     valid = c2 > 0
     assert valid.any()
     assert np.all(c2[valid] > c1[valid])
+
+
+@pytest.mark.parametrize('nl_pad', [8, 21])
+@pytest.mark.parametrize('iwave', [2, 1], ids=['rayleigh', 'love'])
+def test_secular_invariant_to_padding(iwave, nl_pad):
+    """Zero-thickness padded slots are identity propagators: from the
+    unpadded 4-slot tutorial model to ``nl_pad`` slots the secular
+    function keeps its sign at every candidate (its positive scale
+    is arbitrary under the per-layer renormalization), and the
+    solver's roots are unchanged."""
+    from bayhunter_jax.ops.swd import dltar1, dltar4
+    secular = dltar4 if iwave == 2 else dltar1
+    h = np.array([5., 23., 8., 0.])
+    vs = np.array([2.7, 3.6, 3.8, 4.4])
+    vp = vs * 1.73
+    rho = vp * 0.32 + 0.77
+
+    def pad(x, fill, n):
+        return jnp.asarray(np.concatenate([x, np.full(n - x.size,
+                                                      fill)]))
+
+    omega = 2.0 * np.pi / PERIODS[:, None]
+    c = np.linspace(2.0, 4.6, 261)[None, :]
+    layers = {n: (pad(h, 0.0, n), pad(vp, vp[-1], n), pad(vs, vs[-1], n),
+                  pad(rho, rho[-1], n)) for n in (4, nl_pad)}
+    vals = {n: np.asarray(secular(jnp.asarray(omega / c),
+                                  jnp.asarray(omega), *layers[n], False))
+            for n in layers}
+    assert np.all(np.isfinite(vals[nl_pad]))
+    np.testing.assert_array_equal(vals[nl_pad] > 0, vals[4] > 0)
+    roots = {n: np.asarray(surfdisp(*layers[n], jnp.asarray(PERIODS),
+                                    iwave=iwave)[0]) for n in layers}
+    np.testing.assert_allclose(roots[nl_pad], roots[4], atol=1e-10)

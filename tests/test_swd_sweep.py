@@ -7,10 +7,10 @@ error flag and the located root for hundreds of pathological models —
 a silent mode-jump in either implementation shows up as a gross value
 mismatch with no error flag.
 
-Calibration (scripts/calibrate_sweep.py, 1000 cases): zero flag
-mismatches, zero value disagreements > 5e-4; f32 secant-polish error
-vs f64 (ADVICE.md round 1): median 1.7e-7, p99 1.2e-6, max 1.6e-4 —
-all inside the dc/16 bracket-width worst case (~3.1e-4).
+Calibration (1000 cases): zero flag mismatches, zero value
+disagreements > 5e-4; f32 secant-polish error vs f64: median 1.7e-7,
+p99 1.2e-6, max 1.6e-4 — all inside the dc/16 bracket-width worst
+case (~3.1e-4).
 """
 
 import numpy as np
@@ -18,11 +18,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from bayhunter_tpu.ops.swd import surfdisp
+from bayhunter_jax import native
+from bayhunter_jax.ops.swd import surfdisp
 
-native = pytest.importorskip('bayhunter_tpu.native')
-if native.load() is None:  # pragma: no cover
-    pytest.skip('native library unavailable', allow_module_level=True)
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    if native.load() is None:  # pragma: no cover
+        pytest.skip('native library unavailable')
+
 
 NL = 10
 PERIODS = np.linspace(2.0, 35.0, 11)        # fundamental-mode band
@@ -112,8 +116,7 @@ def test_sweep_higher_modes():
 
 
 def test_f32_refinement_error_bounded():
-    """Regression bound on the f32 solver's root accuracy (ADVICE.md
-    round 1): the default single sign pass + secant polish must stay
+    """Regression bound on the f32 solver's root accuracy: the default single sign pass + secant polish must stay
     well inside the dc/16 bracket width against the f64 native golden
     — in distribution, not just on parity fixtures."""
     rs = np.random.RandomState(7)
@@ -137,97 +140,24 @@ def test_f32_refinement_error_bounded():
     assert e.max() < 3.3e-4  # dc/16 bracket width is the hard ceiling
 
 
-def test_grouped_solver_pathology_sweep():
-    """Grouped vs per-target batch solves across randomized
-    pathological model batches (LVZ/HVZ/thin/high-vpvs): the shared
-    bracketing/refinement pipeline must reproduce each target's
-    per-target solution — roots within the refinement tolerance, error
-    flags identical — cold AND warm.
-
-    Runs in a fresh interpreter: XLA:CPU intermittently segfaults on
-    this workload late in a long suite process (see
-    conftest.run_isolated)."""
-    from tests.conftest import run_isolated
-    if run_isolated('tests/test_swd_sweep.py::'
-                    'test_grouped_solver_pathology_sweep'):
-        return
-    from bayhunter_tpu.ops.swd import (surfdisp_roots_batch,
-                                       surfdisp_roots_batch_grouped)
-
-    rs = np.random.RandomState(7)
-    C = 8
-    p_ph = jnp.asarray(np.linspace(2.0, 35.0, 9), jnp.float32)
-    p_gr = jnp.asarray(np.linspace(3.0, 30.0, 7), jnp.float32)
-
-    for trial, kind in enumerate(KINDS):
-        H = np.zeros((C, NL), np.float32)
-        VP = np.zeros((C, NL), np.float32)
-        VS = np.zeros((C, NL), np.float32)
-        RHO = np.zeros((C, NL), np.float32)
-        for c in range(C):
-            h, vp, vs, rho = make_model(rs, kind)
-            H[c] = _pad(h, 0.0)
-            VP[c] = _pad(vp, vp[-1])
-            VS[c] = _pad(vs, vs[-1])
-            RHO[c] = _pad(rho, rho[-1])
-        args = tuple(jnp.asarray(x) for x in (H, VP, VS, RHO))
-
-        # cold: grouped vs separate
-        outs = surfdisp_roots_batch_grouped(
-            *args, [p_ph, p_gr], [0, 1], None, iwave=2,
-            interpret=True)
-        ref_ph = surfdisp_roots_batch(*args, p_ph, None, iwave=2,
-                                      igr=0, interpret=True)
-        ref_gr = surfdisp_roots_batch(*args, p_gr, None, iwave=2,
-                                      igr=1, interpret=True)
-        for (g, r), name in zip(zip(outs, (ref_ph, ref_gr)),
-                                ('phase', 'group')):
-            np.testing.assert_array_equal(
-                np.asarray(g[1]), np.asarray(r[1]),
-                err_msg='%s err flags, %s' % (name, kind))
-            ok = ~np.asarray(g[1])
-            np.testing.assert_allclose(
-                np.asarray(g[0])[ok], np.asarray(r[0])[ok],
-                atol=5e-4, err_msg='%s roots, %s' % (name, kind))
-
-        # warm: displaced off the DDC grid from the cold roots
-        cps = [outs[0][2] + 0.0117, outs[1][2] + 0.0117]
-        w_out = surfdisp_roots_batch_grouped(
-            *args, [p_ph, p_gr], [0, 1], cps, iwave=2,
-            interpret=True)
-        w_ph = surfdisp_roots_batch(*args, p_ph, cps[0], iwave=2,
-                                    igr=0, interpret=True)
-        w_gr = surfdisp_roots_batch(*args, p_gr, cps[1], iwave=2,
-                                    igr=1, interpret=True)
-        for (g, r), name in zip(zip(w_out, (w_ph, w_gr)),
-                                ('phase', 'group')):
-            np.testing.assert_array_equal(
-                np.asarray(g[1]), np.asarray(r[1]),
-                err_msg='warm %s err flags, %s' % (name, kind))
-            ok = ~np.asarray(g[1])
-            np.testing.assert_allclose(
-                np.asarray(g[0])[ok], np.asarray(r[0])[ok],
-                atol=5e-4, err_msg='warm %s roots, %s' % (name, kind))
-
-
 def test_walker_warm_refinement_error_bounded():
-    """Regression bound on the WALKING warm solver's root accuracy at
-    the production bracket-refinement depth (BAYHUNTER_WALK_NBISECT
-    default 0 for phase solves — the closing secant interpolates the
-    raw DDC walk bracket): randomized vs-move-sized perturbations of
-    pathology models, warm-solved from the unshifted roots, against
-    the f64 native golden of the perturbed model.
-
-    Calibration (scripts/calibrate_walk_nbisect.py NB_DEPTHS=2,1,0,
-    2145 lanes): depth 2/1/0 median 1.79/1.84/1.90e-7,
-    p99 1.4/1.8/3.7e-6 — the closing secant polish on the bracket
-    values dominates; the max (~6e-2) is a rare warm-vs-cold
-    root-selection difference near osculating modes, not a refinement
-    error, so it is bounded as a count, not a magnitude."""
-    from bayhunter_tpu.ops.swd import surfdisp_roots_batch
+    """Regression bound on the WARM solver's root accuracy (the ring
+    search around the cached roots that every model move runs):
+    randomized vs-move-sized perturbations of pathology models,
+    warm-solved in f32 from the unperturbed model's roots at the
+    vs-move ring width, against the f64 native golden of the perturbed
+    model.  The closing secant polish on the bracket values carries
+    the accuracy; rare warm-vs-cold root-selection differences near
+    osculating modes are bounded as a count, not a magnitude."""
+    import jax
+    from bayhunter_jax.ops.swd import surfdisp_roots
 
     rs = np.random.RandomState(17)
     per = jnp.asarray(PERIODS, jnp.float32)
+    cold = jax.jit(jax.vmap(lambda h, a, b, r: surfdisp_roots(
+        h, a, b, r, per)))
+    warm = jax.jit(jax.vmap(lambda h, a, b, r, c: surfdisp_roots(
+        h, a, b, r, per, c_prev=c, warm_halfwidth=16)))
     errs = []
     n_outlier = 0
     for kind in KINDS:
@@ -253,21 +183,17 @@ def test_walker_warm_refinement_error_bounded():
         args0 = tuple(B(rows0, j) for j in range(4))
         args2 = tuple(B(rows2, j) for j in range(4))
         gold = np.stack(golds)
-        _, _, roots = surfdisp_roots_batch(*args0, per,
-                                           interpret=True)
-        cg, err, _ = surfdisp_roots_batch(
-            *args2, per, c_prev=roots, warm_halfwidth=2,
-            warm_trips_cap=2, pert_newton=True, interpret=True)
+        _, _, roots = cold(*args0)
+        cg, err, _ = warm(*args2, roots)
         cgv = np.asarray(cg)
         found = np.isfinite(cgv) & (cgv > 0)
         e = np.abs(cgv[found] - gold[found])
         n_outlier += int((e > 1.5e-3).sum())
         errs.append(e[e <= 1.5e-3])
     e = np.concatenate(errs)
+    # calibrated on the CPU (330 lanes): median 1.5e-7, p99 7.6e-7,
+    # max 9.5e-5, no outliers
     assert e.size >= 250
-    # calibrated: median 1.8e-7, p99 1.5e-6 (depth-invariant 4..1)
     assert np.median(e) < 2e-6
     assert np.percentile(e, 99) < 2e-5
-    # root-selection outliers (warm lock onto a neighbouring mode):
-    # rare, depth-independent, bounded as a fraction of lanes
     assert n_outlier <= 0.01 * (e.size + n_outlier)

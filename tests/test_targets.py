@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from bayhunter_tpu import Targets
-from bayhunter_tpu.synthobs import SynthObs
+from bayhunter_jax import Targets
+from bayhunter_jax.synthobs import SynthObs
 from tests.conftest import golden_path
 
 

@@ -15,9 +15,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from bayhunter_tpu.sampler.chain import (build_sampler, dispatch_cycles,
+from bayhunter_jax.sampler.chain import (build_sampler, dispatch_cycles,
                                          make_config)
-from bayhunter_tpu.sampler import tempering
+from bayhunter_jax.sampler import tempering
 
 DTYPE = jnp.float64
 
@@ -353,8 +353,8 @@ def test_optimizer_tempered_run(tmp_path):
     """ntemps>1 runs heated replicas on the batch axis but keeps the
     reference output contract: nchains COLD chains on disk."""
     import os.path as op
-    from bayhunter_tpu import Targets, MCMC_Optimizer
-    from bayhunter_tpu.synthobs import SynthObs
+    from bayhunter_jax import Targets, MCMC_Optimizer
+    from bayhunter_jax.synthobs import SynthObs
 
     h = np.array([5., 23., 8., 0.])
     vs = np.array([2.7, 3.6, 3.8, 4.4])

@@ -4,8 +4,8 @@ true models in one chain batch, sharded over the 8 virtual CPU devices
 
 import numpy as np
 
-from bayhunter_tpu.parallel import TomoInversion
-from bayhunter_tpu.synthobs import SynthObs
+from bayhunter_jax.parallel import TomoInversion
+from bayhunter_jax.synthobs import SynthObs
 
 PRIORS = {'vs': (2.0, 5.0), 'z': (0.0, 60.0), 'layers': (1, 6),
           'vpvs': 1.73, 'swdnoise_corr': 0.0,

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from bayhunter_tpu.models import Model
-from bayhunter_tpu.ops import voronoi
+from bayhunter_jax.models import Model
+from bayhunter_jax.ops import voronoi
 
 NL = 10
 
@@ -100,53 +100,3 @@ def test_reference_vector_roundtrip():
     assert n == 4
     np.testing.assert_allclose(vs_r, np.asarray(vs)[:4])
     np.testing.assert_allclose(z_r, np.asarray(z)[:4])
-
-
-def test_voronoi_to_layers_batch_matches_vmap():
-    """The flat-lane batch conversion must reproduce the vmapped
-    per-chain voronoi_to_layers exactly (same ops, reassociated
-    layout only), including mantle override and varying n."""
-    import jax
-    from bayhunter_tpu.ops.voronoi import (voronoi_to_layers,
-                                           voronoi_to_layers_batch)
-    rs = np.random.RandomState(3)
-    C, NL = 33, 9
-    vs = rs.uniform(2.0, 4.8, (C, NL)).astype(np.float32)
-    z = np.sort(rs.uniform(0.0, 60.0, (C, NL)), axis=1) \
-        .astype(np.float32)
-    n = rs.randint(2, NL + 1, C).astype(np.int32)
-    vpvs = rs.uniform(1.6, 1.9, C).astype(np.float32)
-    args = (jnp.asarray(vs), jnp.asarray(z), jnp.asarray(n),
-            jnp.asarray(vpvs))
-    for mantle in (None, (4.2, 1.8)):
-        ref = jax.vmap(lambda a, b, c, d: voronoi_to_layers(
-            a, b, c, d, mantle=mantle))(*args)
-        out = voronoi_to_layers_batch(*args, mantle=mantle)
-        for r, o, name in zip(ref, out, ('h', 'vp', 'vs', 'rho')):
-            np.testing.assert_allclose(
-                np.asarray(o), np.asarray(r), rtol=1e-6, atol=1e-6,
-                err_msg=f'{name} mantle={mantle}')
-
-
-def test_model_is_valid_batch_matches_vmap():
-    import jax
-    from bayhunter_tpu.ops.voronoi import (model_is_valid,
-                                           model_is_valid_batch)
-    rs = np.random.RandomState(5)
-    C, NL = 64, 9
-    priors = {'layers': (1, 7), 'vs': (2.0, 5.0), 'z': (0.0, 60.0)}
-    vs = rs.uniform(1.8, 5.2, (C, NL)).astype(np.float32)
-    z = np.sort(rs.uniform(0.0, 65.0, (C, NL)), axis=1) \
-        .astype(np.float32)
-    n = rs.randint(2, NL + 1, C).astype(np.int32)
-    vpvs = np.full(C, 1.73, np.float32)
-    args = (jnp.asarray(vs), jnp.asarray(z), jnp.asarray(n),
-            jnp.asarray(vpvs))
-    for lvz, hvz in ((None, None), (0.3, None), (None, 0.6),
-                     (0.2, 0.5)):
-        ref = jax.vmap(lambda a, b, c, d: model_is_valid(
-            a, b, c, d, priors, 0.5, lvz, hvz))(*args)
-        out = model_is_valid_batch(*args, priors, 0.5, lvz, hvz)
-        np.testing.assert_array_equal(np.asarray(out),
-                                      np.asarray(ref),
-                                      err_msg=f'lvz={lvz} hvz={hvz}')

@@ -9,7 +9,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, op.join(op.dirname(__file__), '..'))
-from bayhunter_tpu import SynthObs  # noqa: E402
+from bayhunter_jax import SynthObs  # noqa: E402
 
 idx = 3
 h = [5, 23, 8, 0]

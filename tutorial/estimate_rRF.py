@@ -10,7 +10,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, op.join(op.dirname(__file__), '..'))
-from bayhunter_tpu import utils  # noqa: E402
+from bayhunter_jax import utils  # noqa: E402
 
 here = op.dirname(__file__) or '.'
 

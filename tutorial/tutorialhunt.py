@@ -1,6 +1,6 @@
 """End-to-end joint SWD + RF inversion of the synthetic station "st3".
 
-TPU-native equivalent of the reference tutorial workflow
+Accelerator equivalent of the reference tutorial workflow
 (reference: tutorial/tutorialhunt.py): load config, add correlated
 noise with known hyperparameters to the synthetic observables, invert
 jointly, then post-process and plot.  Unlike the reference there is no
@@ -19,7 +19,7 @@ import matplotlib
 matplotlib.use('PDF')
 
 sys.path.insert(0, op.join(op.dirname(__file__), '..'))
-from bayhunter_tpu import (Targets, utils, MCMC_Optimizer,  # noqa: E402
+from bayhunter_jax import (Targets, utils, MCMC_Optimizer,  # noqa: E402
                            PlotFromStorage, SynthObs)
 
 formatter = ' %(processName)-12s: %(levelname)-8s |  %(message)s'
